@@ -1,10 +1,10 @@
 // Native host codec for wavelet_tpu: threaded threshold+RLE+serialize+xz.
 //
-// This is the TPU framework's native runtime component replacing the
+// This is the framework's native runtime component replacing the
 // reference's serial C++ pack path (compressor.cpp:222-291 semantics:
 // magnitude mask, (zeros_before, value) run-length pairs, int32/float32
 // payload, .xz container with CRC64 at preset 6) — redesigned as a
-// batch-parallel library: the TPU device hands back a dense [N, XYZ]
+// batch-parallel library: the device hands back a dense [N, XYZ]
 // coefficient batch plus per-item float32 thresholds, and a worker pool
 // packs every item concurrently (LZMA is the dominant host cost and scales
 // across cores).  Exposed via a minimal C ABI consumed with ctypes
@@ -440,10 +440,8 @@ int64_t run_pool(int n_threads, int64_t n_items,
 // two sinks: per-item files (reference layout) and per-item blobs (bundle).
 
 // Item i's coefficients are `rows` runs of `row_len` floats spaced
-// `row_stride` apart starting at coeffs + offsets[i] — covers both the
-// contiguous [N, XYZ] layout (rows=1) and the TPU lane-packed
-// [M, X, Y, P*Z] layout (rows=X*Y, row_len=Z, row_stride=P*Z) without a
-// host repack.
+// `row_stride` apart starting at coeffs + offsets[i] — the contiguous
+// [N, XYZ] layout is rows=1; strided layouts walk without a host repack.
 template <typename Emit>
 int64_t pack_core_strided(const float* coeffs, const float* t32,
                           int64_t n_items, int64_t rows, int64_t row_len,
@@ -484,7 +482,7 @@ int64_t pack_core_strided(const float* coeffs, const float* t32,
 // iz[c]] — the per-axis tables carry both the layout's strides and any
 // in-place permutation (e.g. the interleaved Haar layout, where the device
 // skips the low/high deinterleave and the host walks coefficients through
-// kernels/haar_pallas.interleave_perm instead).  Same payload bytes as the
+// core/interleave.interleave_perm instead).  Same payload bytes as the
 // strided walk for the same logical data.
 template <typename Emit>
 int64_t pack_core_indexed(const float* coeffs, const float* t32,
@@ -1131,7 +1129,7 @@ namespace {
 // thrash (measured 0.24 GB/s/core — no better than NumPy).  The fix is
 // the scratch-staged [kXTile, y, kZTile] tile described below: strided
 // hops land only in a small contiguous buffer where 4K aliasing cannot
-// thrash, and both HBM-facing passes stream contiguous segments.
+// thrash, and both memory-facing passes stream contiguous segments.
 
 constexpr int64_t kXTile = 8;
 constexpr int64_t kZTile = 8;

@@ -13,9 +13,6 @@ from conftest import fixture
 PLT74 = fixture("plt00074")
 PLT75 = fixture("plt00075")
 
-needs_fixtures = pytest.mark.skipif(
-    not os.path.isdir(PLT74), reason="reference fixtures not available")
-
 DATADIR = os.path.dirname(PLT74)
 
 
@@ -27,7 +24,6 @@ def _compare_tree(golden, ours):
             assert filecmp.cmp(a, b, shallow=False), f"{rel}/{n} differs"
 
 
-@needs_fixtures
 def test_api_compress_decompress_byte_identical(tmp_path):
     stats = wavelet_tpu.compress(
         DATADIR, str(tmp_path / "comp"), min_time="plt00074",
@@ -40,7 +36,6 @@ def test_api_compress_decompress_byte_identical(tmp_path):
     _compare_tree(PLT75, str(out / "plt00075"))
 
 
-@needs_fixtures
 def test_api_decompress_partial_and_preview(tmp_path):
     wavelet_tpu.compress(
         DATADIR, str(tmp_path / "comp"), min_time="plt00074",
@@ -56,7 +51,6 @@ def test_api_decompress_partial_and_preview(tmp_path):
     assert os.path.isdir(tmp_path / "prev" / "plt00074")
 
 
-@needs_fixtures
 def test_api_estimate_check_info(tmp_path):
     est = wavelet_tpu.estimate(DATADIR, min_time="plt00074",
                                components=["temp", "pressure"], keep=0.999)
@@ -86,7 +80,6 @@ def test_api_lazy_exports():
         wavelet_tpu.no_such_attribute
 
 
-@needs_fixtures
 def test_api_decompress_f32_output(tmp_path):
     wavelet_tpu.compress(
         DATADIR, str(tmp_path / "comp"), min_time="plt00074",

@@ -20,9 +20,6 @@ from wavelet_tpu.pipeline.check import check_run
 
 PLT74 = fixture("plt00074")
 
-needs_fixtures = pytest.mark.skipif(
-    not os.path.isdir(PLT74), reason="reference fixtures not available")
-
 
 # ---------------------------------------------------------------------------
 # container unit tests
@@ -120,7 +117,6 @@ def _dirs_identical(p1, p2):
     return True
 
 
-@needs_fixtures
 def test_bundle_roundtrip_byte_identical(tmp_path):
     comp = str(tmp_path / "comp") + os.sep
     out = str(tmp_path / "out") + os.sep
@@ -142,7 +138,6 @@ def test_bundle_roundtrip_byte_identical(tmp_path):
         assert _dirs_identical(fixture(plt), os.path.join(out, plt)), plt
 
 
-@needs_fixtures
 def test_bundle_members_equal_per_file_bytes(tmp_path):
     """The container is a pure layout change: each member's bytes must be
     exactly what the per-file mode writes for the same item."""
@@ -162,7 +157,6 @@ def test_bundle_members_equal_per_file_bytes(tmp_path):
             assert f.read() == bs.blob(t, lv, c, b), (t, lv, c, b)
 
 
-@needs_fixtures
 @pytest.mark.parametrize("extra", [
     {"codec": "raw"},
     {"codec": "raw", "transfer": "sparse"},
@@ -188,7 +182,6 @@ def test_bundle_roundtrip_extension_modes(tmp_path, extra):
                                    os.path.join(out, plt)), (plt, extra)
 
 
-@needs_fixtures
 def test_bundle_python_backend_identical_bytes(tmp_path):
     """Native and python packers must agree on every bundle member.
 
@@ -234,7 +227,6 @@ def test_bundle_python_backend_identical_bytes(tmp_path):
 # resume + check
 # ---------------------------------------------------------------------------
 
-@needs_fixtures
 def test_bundle_resume_appends_generation(tmp_path):
     comp = str(tmp_path / "comp") + os.sep
     out = str(tmp_path / "out") + os.sep
@@ -258,7 +250,6 @@ def test_bundle_resume_appends_generation(tmp_path):
         assert _dirs_identical(fixture(plt), os.path.join(out, plt)), plt
 
 
-@needs_fixtures
 def test_bundle_resume_generation_when_base_exists(tmp_path):
     """A partially-complete timestep resumes into a -g1 generation file and
     readers merge both."""
@@ -291,7 +282,6 @@ def test_bundle_resume_generation_when_base_exists(tmp_path):
         assert _dirs_identical(fixture(plt), os.path.join(out, plt)), plt
 
 
-@needs_fixtures
 def test_bundle_check_mode(tmp_path):
     comp = str(tmp_path / "comp") + os.sep
     cfg = Config(data_dir=FIXTURES, min_time="plt00074", max_time="plt00075",
@@ -320,7 +310,6 @@ def test_bundle_check_mode(tmp_path):
     assert len(result["errors"]) == len(entries)
 
 
-@needs_fixtures
 def test_bundle_cli_key(tmp_path):
     from wavelet_tpu import cli
 

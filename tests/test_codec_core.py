@@ -212,11 +212,8 @@ def test_device_rmse_matches_host():
 
 def test_estimate_device_metrics_flag(tmp_path):
     from conftest import FIXTURES
-    import os
     from wavelet_tpu.pipeline import Config, estimate_run
 
-    if not os.path.isdir(os.path.join(FIXTURES, "plt00074")):
-        pytest.skip("fixtures unavailable")
     cfg = Config(data_dir=FIXTURES, min_time="plt00074", max_time="plt00074",
                  min_level=0, max_level=0, components=["temp"], keep=0.999,
                  device_metrics=True)

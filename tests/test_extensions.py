@@ -1,6 +1,6 @@
 """Extension features beyond the reference: multi-scale transform, int16
 payloads, extension metadata sidecar.  (The reference's TODO.txt wishlist —
-coefficient-width selection and better compaction — implemented TPU-side.)"""
+coefficient-width selection and better compaction — implemented device-side.)"""
 
 import os
 

@@ -1,7 +1,7 @@
 """Cross-host giant boxes (VERDICT r3 stretch item 7): ONE box sharded
 over a 2-process x 2-local-device GLOBAL mesh — larger than either
 process's devices could hold alone — forward+inverse through the
-zero-collective interleaved transform, gathered back over DCN, bitwise
+zero-collective interleaved transform, gathered back, bitwise
 equal to a single-process round trip of the same box.
 """
 
@@ -25,7 +25,7 @@ jax.distributed.initialize(coordinator_address=f"localhost:{port}",
 assert jax.device_count() == 4 and len(jax.local_devices()) == 2
 
 from wavelet_tpu.runtime import distributed, mesh as mesh_lib
-from wavelet_tpu.kernels import haar_pallas
+from wavelet_tpu.core import interleave
 
 mesh = mesh_lib.data_mesh(jax.devices())     # GLOBAL 4-device mesh
 scales = 2
@@ -44,9 +44,9 @@ coeffs_np = distributed.gather_giant(coeffs)
 back_np = distributed.gather_giant(back)
 
 # single-device reference of the SAME full box
-ref_c = np.asarray(haar_pallas._fwd_interleaved_block(
+ref_c = np.asarray(interleave.forward_block(
     jax.numpy.asarray(box), scales))
-ref_b = np.asarray(haar_pallas._inv_interleaved_block(
+ref_b = np.asarray(interleave.inverse_block(
     jax.numpy.asarray(ref_c), scales))
 np.testing.assert_array_equal(coeffs_np.view(np.int32),
                               ref_c.view(np.int32))

@@ -1,5 +1,5 @@
 """Global-threshold mode: exponent-bin histograms, quantile selection, and
-the end-to-end compress path (new TPU-native capability; no reference
+the end-to-end compress path (new capability; no reference
 analogue — SURVEY.md §2 item 2 and BASELINE.json configs 4-5)."""
 
 import numpy as np

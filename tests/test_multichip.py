@@ -41,7 +41,7 @@ def test_global_threshold_collective_matches_unsharded(mesh8):
     thr1 = threshold.global_histogram_threshold(flat, 0.1)
     assert float(thr) == pytest.approx(float(thr1), rel=1e-6)
     # kept comes back as two 16-bit limb sums (int32 psum of raw counts
-    # would wrap past 2^31 global kept at pod scale)
+    # would wrap past 2^31 global kept on large meshes)
     frac = distributed.kept_count(kept) / batch.size
     assert 0.05 < frac < 0.2
 
@@ -134,7 +134,7 @@ def test_sharded_giant_box_interleaved_multiscale(mesh8):
     in the in-place layout).  Logical-order recovery via the same
     interleave_coords_multi map the host packer uses must match the jnp
     pyramid bitwise, and the inverse must round-trip bitwise."""
-    from wavelet_tpu.kernels import haar_pallas
+    from wavelet_tpu.core import interleave
     from wavelet_tpu.runtime import distributed
 
     rng = np.random.default_rng(9)
@@ -144,7 +144,7 @@ def test_sharded_giant_box_interleaved_multiscale(mesh8):
         bwd = distributed.make_sharded_box_inverse_interleaved(mesh8, scales)
         coeffs = fwd(mesh_lib.shard_batch(box, mesh8))
         got = np.asarray(coeffs)
-        PX, PY, PZ = haar_pallas.interleave_coords_multi(box.shape, scales)
+        PX, PY, PZ = interleave.interleave_coords_multi(box.shape, scales)
         want = np.asarray(haar.haar3d_forward_multi(jnp.asarray(box), scales))
         np.testing.assert_array_equal(got[PX, PY, PZ], want)
         back = np.asarray(bwd(coeffs))
@@ -153,25 +153,21 @@ def test_sharded_giant_box_interleaved_multiscale(mesh8):
         np.testing.assert_array_equal(back, want_rt)
 
 
-def test_mesh_sharded_pallas_kernels_match_single_device(mesh8, monkeypatch):
-    """The fused Pallas kernels now run under shard_map on a mesh (XLA
-    cannot auto-partition custom calls): results must be bitwise equal to
-    the single-device engine, for both coefficient layouts."""
-    monkeypatch.setenv("WAVELET_TPU_FORCE_PALLAS", "1")
+def test_mesh_sharded_pallas_kernels_match_single_device(mesh8):
+    """Batches sharded over the mesh (XLA partitions the jnp transforms)
+    give results bitwise equal to the single-device engine, for one- and
+    two-scale pyramids."""
     rng = np.random.default_rng(12)
     data = rng.standard_normal((16, 8, 8, 8)).astype(np.float32)
-    for layout in ("halves", "interleaved"):
-        e1 = engine.CodecEngine(mesh=None, layout=layout)
-        e8 = engine.CodecEngine(mesh=mesh8, layout=layout)
-        assert e1.use_pallas and e8.use_pallas
+    for scales in (1, 2):
+        e1 = engine.CodecEngine(mesh=None, scales=scales)
+        e8 = engine.CodecEngine(mesh=mesh8, scales=scales)
         items = [batching.WorkItem(t=0, level=0, comp_idx=0, box=b)
                  for b in range(16)]
         batches1 = batching.plan_batches(
-            [(it, data[i]) for i, it in enumerate(items)],
-            pack_fn=e1.pack_factor)
+            [(it, data[i]) for i, it in enumerate(items)])
         batches8 = batching.plan_batches(
-            [(it, data[i]) for i, it in enumerate(items)],
-            pad_multiple=8, pack_fn=e8.pack_factor)
+            [(it, data[i]) for i, it in enumerate(items)], pad_multiple=8)
         (c1, t1), (c8, t8) = (e1.compress_shapebatch(batches1[0], 0.999),
                               e8.compress_shapebatch(batches8[0], 0.999))
         for i in range(16):

@@ -4,7 +4,7 @@
 single-process run.
 
 This turns the multi-host machinery — ``process_local_slice`` work
-sharding, the two-limb DCN histogram all-reduce (global mode, over Gloo),
+sharding, the two-limb cross-process histogram all-reduce (global mode, over Gloo),
 and concurrent last-writer-wins sidecar writes — from structure into
 tested behavior.  The reference has no distributed runtime at all
 (SURVEY.md §2); this capability is mandated by BASELINE.json configs 4-5.
@@ -60,7 +60,6 @@ def _run_two_processes(data_dir, comp_dir, extra=()):
     port = _free_port()
     env = dict(os.environ,
                JAX_PLATFORMS="cpu",
-               WAVELET_TPU_PLATFORM="cpu",
                WAVELET_TPU_NATIVE=os.environ.get("WAVELET_TPU_NATIVE", "1"))
     env.pop("XLA_FLAGS", None)
     procs = []
@@ -90,7 +89,7 @@ def _dir_bytes(d):
 
 @pytest.mark.parametrize("extra", [
     (),                                                   # box (parity) mode
-    ("thresholdmode=global", "keepfraction=0.05"),        # DCN all-reduce
+    ("thresholdmode=global", "keepfraction=0.05"),        # cross-process all-reduce
 ], ids=["box_mode", "global_mode"])
 def test_two_process_archive_matches_single_process(tmp_path, extra):
     data_dir = _write_data(tmp_path)
@@ -99,7 +98,7 @@ def test_two_process_archive_matches_single_process(tmp_path, extra):
 
     # single-process oracle (in-process CLI would fight the test session's
     # jax config; a subprocess keeps both runs identical in environment)
-    env = dict(os.environ, JAX_PLATFORMS="cpu", WAVELET_TPU_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     r = subprocess.run(_cli_args(data_dir, single_dir), env=env,
                        cwd=os.path.dirname(os.path.dirname(
@@ -138,7 +137,7 @@ def test_two_process_bundle_archive(tmp_path):
     data_dir = _write_data(tmp_path)
     single_dir = str(tmp_path / "single") + os.sep
     multi_dir = str(tmp_path / "multi") + os.sep
-    env = dict(os.environ, JAX_PLATFORMS="cpu", WAVELET_TPU_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     cwd = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     r = subprocess.run(_cli_args(data_dir, single_dir,
@@ -192,7 +191,7 @@ def test_two_process_giant_boxes_shard_locally(tmp_path):
     cwd = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
     single_dir = str(tmp_path / "single") + os.sep
-    env1 = dict(os.environ, JAX_PLATFORMS="cpu", WAVELET_TPU_PLATFORM="cpu")
+    env1 = dict(os.environ, JAX_PLATFORMS="cpu")
     env1.pop("XLA_FLAGS", None)
     r = subprocess.run([PY, "-m", "wavelet_tpu.cli", *args_base,
                         f"compresseddir={single_dir}", "-c"],
@@ -257,7 +256,7 @@ def test_two_process_partial_retrieval(tmp_path):
 
     data_dir = _write_data(tmp_path, n_times=3)
     comp_dir = str(tmp_path / "comp") + os.sep
-    env = dict(os.environ, JAX_PLATFORMS="cpu", WAVELET_TPU_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     cwd = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     r = subprocess.run(
@@ -309,7 +308,7 @@ def test_two_process_decompress_matches_single(tmp_path):
 
     data_dir = _write_data(tmp_path, n_times=3)
     comp_dir = str(tmp_path / "comp") + os.sep
-    env = dict(os.environ, JAX_PLATFORMS="cpu", WAVELET_TPU_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     cwd = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     args = [PY, "-m", "wavelet_tpu.cli", f"datadir={data_dir}",
@@ -380,7 +379,7 @@ def test_two_process_crosshost_giant_boxes(tmp_path):
                  "maxfile=plt00041", "minlevel=0", "maxlevel=0",
                  "components=a", "keep=0.999", "giantbox=2048"]
     cwd = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env1 = dict(os.environ, JAX_PLATFORMS="cpu", WAVELET_TPU_PLATFORM="cpu")
+    env1 = dict(os.environ, JAX_PLATFORMS="cpu")
     env1.pop("XLA_FLAGS", None)
 
     single_dir = str(tmp_path / "single") + os.sep
@@ -473,7 +472,7 @@ def test_two_process_crosshost_global_threshold(tmp_path):
                  "thresholdmode=global", "keepfraction=0.05",
                  "globalcache=5000"]
     cwd = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env1 = dict(os.environ, JAX_PLATFORMS="cpu", WAVELET_TPU_PLATFORM="cpu")
+    env1 = dict(os.environ, JAX_PLATFORMS="cpu")
     env1.pop("XLA_FLAGS", None)
 
     single_dir = str(tmp_path / "single") + os.sep
@@ -531,7 +530,7 @@ def test_crosshost_decompress_more_processes_than_timesteps(tmp_path):
                  "maxfile=plt00080", "minlevel=0", "maxlevel=0",
                  "components=a", "keep=0.999", "giantbox=2048"]
     cwd = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env1 = dict(os.environ, JAX_PLATFORMS="cpu", WAVELET_TPU_PLATFORM="cpu")
+    env1 = dict(os.environ, JAX_PLATFORMS="cpu")
     env1.pop("XLA_FLAGS", None)
 
     comp_dir = str(tmp_path / "comp") + os.sep

@@ -1,12 +1,11 @@
-"""Lane-packed codec path: batching geometry, strided native codec, and the
-engine round trip (Pallas kernels in interpret mode on the CPU test mesh)."""
+"""The batch path: batching geometry, the strided native codec, and the
+engine round trip against the scalar oracle."""
 
 import numpy as np
 import pytest
 
 from wavelet_tpu import native
-from wavelet_tpu.core import oracle, threshold
-from wavelet_tpu.kernels import haar_pallas as hp
+from wavelet_tpu.core import oracle
 from wavelet_tpu.runtime import batching, engine
 
 
@@ -17,22 +16,14 @@ def _entries(n, dims, seed=0):
             for i in range(n)]
 
 
-def test_lane_pack_factor():
-    assert hp.lane_pack_factor((16, 32, 64)) == 2
-    assert hp.lane_pack_factor((8, 4, 2)) == 64
-    assert hp.lane_pack_factor((4, 4, 128)) == 1
-    assert hp.lane_pack_factor((4, 4, 256)) == 1
-    assert hp.lane_pack_factor((5, 5, 3)) == 1   # odd Z unpacked
-
-
 def test_plan_batches_packed_geometry():
     entries = _entries(5, (4, 8, 16))
-    [batch] = batching.plan_batches(entries, pack_fn=lambda s: 8)
-    assert batch.pack == 8
-    assert batch.data.shape == (1, 4, 8, 128)   # 5 -> padded to 8 items
+    [batch] = batching.plan_batches(entries, pad_multiple=8)
+    assert batch.data.shape == (8, 4, 8, 16)    # 5 -> padded to 8 items
     assert batch.n_valid == 5
     for i, (item, arr) in enumerate(entries):
         np.testing.assert_array_equal(batch.item_view(i), arr)
+    assert not batch.data[5:].any()             # padding slots are zeros
     offs = batch.item_offsets()
     flat = batch.data.reshape(-1)
     for i, (item, arr) in enumerate(entries):
@@ -43,15 +34,13 @@ def test_plan_batches_packed_geometry():
 def test_native_strided_pack_unpack_roundtrip(tmp_path):
     dims = (4, 8, 16)
     entries = _entries(6, dims, seed=2)
-    [batch] = batching.plan_batches(entries, pack_fn=hp.lane_pack_factor)
-    assert batch.pack == 8
+    [batch] = batching.plan_batches(entries)
     t32 = np.full(6, np.float32(0.5))
     packer = engine.HostPacker(use_native=True)
-    paths_dir = str(tmp_path)
-    packer.pack(paths_dir, batch, t32)
+    packer.pack(str(tmp_path), batch, t32)
 
-    dest = batching.empty_batch(batch.items, dims, pack=8)
-    packer.unpack_into(paths_dir, dest)
+    dest = batching.empty_batch(batch.items, dims)
+    packer.unpack_into(str(tmp_path), dest)
     for i, (item, arr) in enumerate(entries):
         want = np.where(np.abs(arr) > 0.5, arr, 0.0)
         np.testing.assert_array_equal(dest.item_view(i), want)
@@ -60,7 +49,7 @@ def test_native_strided_pack_unpack_roundtrip(tmp_path):
 def test_strided_and_python_packers_agree(tmp_path):
     dims = (4, 8, 16)
     entries = _entries(4, dims, seed=3)
-    [batch] = batching.plan_batches(entries, pack_fn=hp.lane_pack_factor)
+    [batch] = batching.plan_batches(entries)
     t32 = np.full(4, np.float32(0.25))
     d_py = tmp_path / "py"; d_py.mkdir()
     engine.HostPacker(use_native=False).pack(str(d_py), batch, t32)
@@ -76,63 +65,39 @@ def test_strided_and_python_packers_agree(tmp_path):
 
 
 def test_engine_packed_roundtrip_interpret(tmp_path):
-    """Full packed path vs the jnp path, forced on CPU (interpret mode)."""
+    """Engine compress -> mask -> decompress equals the scalar oracle
+    bitwise, item by item."""
     dims = (4, 8, 16)
     entries = _entries(4, dims, seed=4)
-    eng_packed = engine.CodecEngine(use_pallas=True)
-    eng_plain = engine.CodecEngine(use_pallas=False)
-
-    [pb] = batching.plan_batches(entries, pack_fn=eng_packed.pack_factor)
-    # lane_pack_factor gives 8 for z=16; the 128-lane floor keeps it at 8
-    # even for this 4-item bucket (8*16 = 128 lanes is the minimum proven
-    # kernel row)
-    assert pb.pack == 8
-    [nb] = batching.plan_batches(entries, pack_fn=eng_plain.pack_factor)
-    assert nb.pack == 1
-
-    keep = 0.99
-    cp, tp = eng_packed.compress_shapebatch(pb, keep)
-    cn, tn = eng_plain.compress_shapebatch(nb, keep)
-    np.testing.assert_array_equal(tp[:4], tn[:4])
+    eng = engine.CodecEngine()
+    [b] = batching.plan_batches(entries)
+    cb, t32 = eng.compress_shapebatch(b, 0.99)
+    masked = cb.data.copy()
     for i in range(4):
-        np.testing.assert_array_equal(cp.item_view(i), cn.item_view(i))
         want = oracle.haar_forward_oracle(entries[i][1])
-        np.testing.assert_array_equal(cp.item_view(i).reshape(-1), want)
-
-    # mask + inverse round trip agrees too
-    for cb, eng in ((cp, eng_packed), (cn, eng_plain)):
-        masked = cb.data.copy()
-        for i in range(len(cb.items)):
-            v = batching.ShapeBatch(cb.shape, masked, cb.items, cb.n_valid,
-                                    cb.pack).item_view(i)
-            v[np.abs(v) <= tp[i]] = 0.0
-        out = eng.decompress_shapebatch(
-            batching.ShapeBatch(cb.shape, masked, cb.items, cb.n_valid,
-                                cb.pack))
-        for i in range(4):
-            flat = np.where(
-                np.abs(oracle.haar_forward_oracle(entries[i][1])) > tp[i],
-                oracle.haar_forward_oracle(entries[i][1]), 0.0)
-            want = oracle.haar_inverse_oracle(flat, *dims)
-            np.testing.assert_array_equal(out.item_view(i), want)
+        np.testing.assert_array_equal(cb.item_view(i).reshape(-1), want)
+        v = masked[i]
+        v[np.abs(v) <= t32[i]] = 0.0
+    out = eng.decompress_shapebatch(
+        batching.ShapeBatch(cb.shape, masked, cb.items, cb.n_valid))
+    for i in range(4):
+        want = oracle.haar_inverse_oracle(masked[i].reshape(-1), *dims)
+        np.testing.assert_array_equal(out.item_view(i), want)
 
 
 def test_pack_capped_for_small_buckets():
-    """Tiny buckets must not pad to enormous lane-pack quanta (2 boxes of
-    8x4x2 would otherwise pad to a 512-slot interleaved row) — but the
-    cap floors at a full 128-lane row (P*z >= 128): narrower lane shapes
-    are kernel classes no hardware run has validated."""
-    from wavelet_tpu.runtime import batching
-
-    assert batching.cap_pack(512, 2) == 2          # no z: pure size cap
-    assert batching.cap_pack(512, 2, z=2) == 64    # floor = 128 lanes
-    assert batching.cap_pack(512, 2, z=64) == 2    # floor = 2 at z=64
-    assert batching.cap_pack(512, 600, z=2) == 512
-    assert batching.cap_pack(16, 16, z=16) == 16
-    assert batching.cap_pack(1, 0) == 1
-    items = [(batching.WorkItem(0, 0, 0, i),
-              __import__("numpy").zeros((8, 4, 2), "float32"))
+    """Small buckets pad only to the mesh quantum, and a bucket larger
+    than the batch byte cap splits into quantum-multiple batches."""
+    items = [(batching.WorkItem(0, 0, 0, i), np.zeros((8, 4, 2), np.float32))
              for i in range(2)]
-    batches = batching.plan_batches(items, pack_fn=lambda s: 512)
-    assert batches[0].pack == 64                   # 128-lane floor
-    assert batches[0].pack * 2 <= 512              # still far below 512
+    [b] = batching.plan_batches(items)
+    assert b.data.shape[0] == 2
+    [b4] = batching.plan_batches(items, pad_multiple=4)
+    assert b4.data.shape[0] == 4 and b4.n_valid == 2
+    big = [(batching.WorkItem(0, 0, 0, i), np.zeros((8, 8, 8), np.float32))
+           for i in range(10)]
+    parts = batching.plan_batches(big, pad_multiple=4,
+                                  max_batch_bytes=4 * 8 ** 3 * 4)
+    assert [p.data.shape[0] for p in parts] == [4, 4, 4]
+    assert [p.n_valid for p in parts] == [4, 4, 2]
+    assert batching.dense_batch_nbytes(10, (8, 8, 8), 4) == 12 * 8 ** 3 * 4

@@ -16,9 +16,6 @@ from wavelet_tpu.pipeline import (Config, common, compress_run,
 
 PLT74 = fixture("plt00074")
 
-needs_fixtures = pytest.mark.skipif(
-    not os.path.isdir(PLT74), reason="reference fixtures not available")
-
 
 def _dirs_identical(p1, p2):
     for root, _dirs, names in os.walk(p1):
@@ -31,7 +28,6 @@ def _dirs_identical(p1, p2):
     return True, None
 
 
-@needs_fixtures
 def test_compress_decompress_byte_identical_roundtrip(tmp_path):
     """BASELINE.json config 2: plt00074->plt00075, levels 0-1, full round
     trip.  The fixtures hold constant boxes, which survive thresholding
@@ -62,7 +58,6 @@ def test_compress_decompress_byte_identical_roundtrip(tmp_path):
         assert same, f"{plt}/{diff} differs after round trip"
 
 
-@needs_fixtures
 def test_runinfo_matches_reference_layout(tmp_path):
     comp_dir = str(tmp_path) + os.sep
     cfg = Config(data_dir=FIXTURES, min_time="plt00074", max_time="plt00074",
@@ -78,7 +73,6 @@ def test_runinfo_matches_reference_layout(tmp_path):
     assert counts == [[2]]
 
 
-@needs_fixtures
 def test_estimate_mode_fixture_metrics(tmp_path):
     """BASELINE.json config 1: plt00074, level 0, keep=0.999, -estimate.
 
@@ -93,7 +87,6 @@ def test_estimate_mode_fixture_metrics(tmp_path):
     assert 0.0 < result["compressed_size_pct"] < 5.0
 
 
-@needs_fixtures
 def test_lossy_roundtrip_quality_on_synthetic_data(tmp_path):
     """Non-constant data: verify the estimator reports sane lossy metrics and
     that lower keep -> more loss, less size."""
@@ -124,7 +117,6 @@ def test_lossy_roundtrip_quality_on_synthetic_data(tmp_path):
     assert losses[1] < 0.05            # keep=0.9999 is near-lossless here
 
 
-@needs_fixtures
 def test_cli_parse_reference_grammar():
     mode, cfg = cli.parse_argv([
         'datadir=/data', 'minfile=plt07400', 'maxfile=plt07900',
@@ -168,7 +160,6 @@ def test_clean_string_reference_case():
     assert common.clean_string("doctest.h") == -1
 
 
-@needs_fixtures
 def test_resume_skips_existing_outputs(tmp_path):
     comp_dir = str(tmp_path) + os.sep
     cfg = Config(data_dir=FIXTURES, min_time="plt00074", max_time="plt00074",
@@ -180,7 +171,6 @@ def test_resume_skips_existing_outputs(tmp_path):
     assert s2["files"] == 0 and s2["skipped"] == 2
 
 
-@needs_fixtures
 def test_cli_main_end_to_end(tmp_path, monkeypatch):
     """Drive the real CLI entrypoint (both modes) including the profile key."""
     comp = str(tmp_path / "c") + os.sep
@@ -197,7 +187,6 @@ def test_cli_main_end_to_end(tmp_path, monkeypatch):
     assert os.path.isdir(trace)  # profiler wrote something
 
 
-@needs_fixtures
 def test_cli_main_keep_sweep_and_partial_retrieval(tmp_path):
     """CLI e2e for the two retrieval/estimate extensions: a keep sweep
     through -estimate (fast path) and a filtered -d."""
@@ -220,7 +209,6 @@ def test_cli_main_keep_sweep_and_partial_retrieval(tmp_path):
     assert not os.path.isdir(os.path.join(out, "plt00075", "Level_1"))
 
 
-@needs_fixtures
 def test_cli_clean_error_for_unknown_component(tmp_path, caplog):
     rc = cli.main([f"datadir={FIXTURES}", "minfile=plt00074",
                    "maxfile=plt00074", "minlevel=0", "maxlevel=0",

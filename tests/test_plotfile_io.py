@@ -18,11 +18,7 @@ from wavelet_tpu.io import plotfile as pf
 PLT74 = fixture("plt00074")
 PLT75 = fixture("plt00075")
 
-needs_fixtures = pytest.mark.skipif(
-    not os.path.isdir(PLT74), reason="reference fixtures not available")
 
-
-@needs_fixtures
 def test_read_header():
     h = pf.read_header(PLT74)
     assert h.magic == "HyperCLaw-V1.1"
@@ -40,7 +36,6 @@ def test_read_header():
     assert h.component_indices(["temp", "pressure"]) == [0, 1]
 
 
-@needs_fixtures
 def test_read_level_matches_reference_expectations():
     # expectations transcribed from preprocess.cpp:327-373
     h = pf.read_header(PLT74)
@@ -66,7 +61,6 @@ def test_read_level_matches_reference_expectations():
     np.testing.assert_array_equal(lv0_74.max_values, [np.float32(3902.4)] * 2)
 
 
-@needs_fixtures
 def test_write_plotfile_byte_identical(tmp_path):
     """Regenerate plt00074 and plt00075 from parsed data; require byte equality.
 
@@ -104,7 +98,6 @@ def test_write_plotfile_byte_identical(tmp_path):
                     f"(sizes {len(gb)} vs {len(ob)})")
 
 
-@needs_fixtures
 def test_read_write_read_roundtrip(tmp_path):
     """Data survives write->read unchanged (independent of byte identity)."""
     levels = [pf.read_level(PLT74, l, [0, 1]) for l in range(2)]
@@ -121,7 +114,6 @@ def test_read_write_read_roundtrip(tmp_path):
     assert again.locations == levels[0].locations
 
 
-@needs_fixtures
 def test_big_endian_fab_rejected(tmp_path):
     """A foreign byte-order FAB raises a clean error instead of decoding
     garbage (VisMF::Read byte-swaps; no supported platform writes one)."""
@@ -138,7 +130,6 @@ def test_big_endian_fab_rejected(tmp_path):
         pf.read_level(str(dst), 0, [0, 1])
 
 
-@needs_fixtures
 def test_write_plotfile_f32_precision(tmp_path):
     """outprec=f32: single-precision FABs read back value-identical (the
     data is float32 end to end) at half the Cell_D bytes."""

@@ -19,9 +19,6 @@ from wavelet_tpu.io import plotfile as pf
 from wavelet_tpu.pipeline import Config, compress_run, decompress_run
 
 PLT74 = fixture("plt00074")
-needs_fixtures = pytest.mark.skipif(
-    not os.path.isdir(PLT74), reason="reference fixtures not available")
-
 
 def lowpass_np(a, depth):
     """NumPy oracle of haar.haar3d_lowpass on one (X, Y, Z) box: pairwise
@@ -132,7 +129,6 @@ def test_preview_plotfile_geometry(tmp_path):
     assert dims == [tuple(v >> 1 for v in d) for d in dims0]
 
 
-@needs_fixtures
 def test_preview_cli_on_fixture(tmp_path):
     """CLI end-to-end on the golden fixture (mixed 16x32x64 and 8x4x2
     boxes): preview=1 works; preview=2 is a clean error (the 8x4x2 box's

@@ -9,7 +9,6 @@ import jax.numpy as jnp
 
 from wavelet_tpu.core import rle, threshold
 from wavelet_tpu.io import plotfile as pf
-from wavelet_tpu.kernels import haar_pallas as hp
 from wavelet_tpu.pipeline import Config, compress_run, decompress_run
 
 
@@ -28,29 +27,31 @@ def test_quantile_never_zeroes_low_entropy_fields():
 
 
 def test_block_rows_odd_x_single_row():
-    assert hp.block_rows(5, 8, 128) == 1
-    assert hp.block_rows(17, 16, 128) == 1
-    assert hp.block_rows(16, 16, 128) > 1
+    """Odd extents on any axis: the forward leaves each odd line's last
+    element untouched, bitwise as the oracle does."""
+    from wavelet_tpu.core import haar, oracle
+
+    rng = np.random.default_rng(1)
+    for dims in ((5, 8, 16), (16, 17, 8), (3, 5, 7), (1, 4, 4)):
+        box = (rng.standard_normal(dims) * 10).astype(np.float32)
+        got = np.asarray(haar.forward_flat(jnp.asarray(box)))
+        np.testing.assert_array_equal(
+            got.view(np.int32), oracle.haar_forward_oracle(box).view(np.int32))
 
 
 def test_packed_kernel_odd_x_interpret():
-    """Odd-X boxes must go through the packed path without the even-segment
-    assertion (b=1 keeps the generic odd-tail pass)."""
+    """Odd-X boxes through the engine's compress step match the oracle
+    bitwise (odd tail untouched by the forward)."""
     from wavelet_tpu.core import oracle
+    from wavelet_tpu.runtime import engine
 
     rng = np.random.default_rng(0)
     boxes = (rng.standard_normal((4, 5, 8, 32)) * 10).astype(np.float32)
-    P = 4  # Z=32 -> 4 per lane row
-    packed = np.zeros((1, 5, 8, 128), np.float32)
-    for i in range(4):
-        packed[0, :, :, i * 32 : (i + 1) * 32] = boxes[i]
-    c, mx, mn = hp._fused_forward_packed_call(jnp.asarray(packed), P,
-                                              interpret=True)
-    c = np.asarray(c)
+    flat, _t32 = engine.CodecEngine().compress_batch_raw(boxes, 0.999)
     for i in range(4):
         want = oracle.haar_forward_oracle(boxes[i])
-        np.testing.assert_array_equal(
-            c[0, :, :, i * 32 : (i + 1) * 32].reshape(-1), want)
+        np.testing.assert_array_equal(flat[i].view(np.int32),
+                                      want.view(np.int32))
 
 
 def test_rle_decode_rejects_negative_positions():

@@ -145,7 +145,7 @@ def test_abs_exponent_histogram_is_uint32():
 
 # ---------------------------------------------------------------------------
 # payload codec extension: codec=raw and xzpreset=N (host-pack bottleneck
-# relief; bench_results/host_codec.json motivates it)
+# relief)
 # ---------------------------------------------------------------------------
 
 def _codec_synth(tmp_path):
@@ -433,39 +433,40 @@ def test_cli_keep_sweep_parsing():
 # ---------------------------------------------------------------------------
 
 def test_x_block_never_one_for_even_x():
-    """A single-row interleaved block would silently skip the X pass
-    (rolls on a length-1 axis are identities): for even X the block must
-    be even, even when the byte target would prefer 1 row."""
-    from wavelet_tpu.kernels.haar_pallas import _x_block
+    """The forward transforms along X at every even X, including X=2 (one
+    pair): bitwise equal to the oracle, batched."""
+    from wavelet_tpu.core import haar, oracle
 
-    for x, y, L in ((64, 256, 1024), (32, 192, 1024), (32, 512, 1024),
-                    (64, 64, 1024), (4, 8, 128), (2, 1024, 1024)):
-        xb = _x_block(x, y, L)
-        assert xb % 2 == 0 and x % xb == 0, (x, y, L, xb)
-    assert _x_block(7, 8, 64) == 1  # odd X: single-row (halves-path quirks)
+    rng = np.random.default_rng(4)
+    for dims in ((2, 8, 8), (4, 2, 6), (64, 4, 2), (6, 10, 14)):
+        boxes = rng.standard_normal((3,) + dims).astype(np.float32)
+        got = np.asarray(haar.forward_flat(jnp.asarray(boxes)))
+        for i in range(3):
+            np.testing.assert_array_equal(
+                got[i].view(np.int32),
+                oracle.haar_forward_oracle(boxes[i]).view(np.int32))
 
 
 def test_interleaved_bitwise_at_forced_two_row_blocks():
-    """Shape whose row bytes exceed the block target (xb forced to 2):
-    the X pass must still transform (regression: xb=1 made it identity)."""
-    from wavelet_tpu.core import haar
-    from wavelet_tpu.kernels import haar_pallas as hp
+    """The plain interleaved stencil run on separate two-row X blocks (as
+    the giant-box shards run it) must still transform along X and equal
+    the oracle after the layout permutation."""
+    from wavelet_tpu.core import interleave, oracle
 
     rng = np.random.default_rng(3)
-    x, y, z, pack = 4, 64, 64, 32          # row bytes = 64*2048*4 = 512 KiB
-    n = pack
-    boxes = rng.standard_normal((n, x, y, z)).astype(np.float32)
-    packed = np.ascontiguousarray(
-        boxes.reshape(1, pack, x, y, z).transpose(0, 2, 3, 1, 4)
-        .reshape(1, x, y, pack * z))
-    c, _, _ = hp.fused_forward_interleaved(jnp.asarray(packed), pack)
-    c = np.asarray(c)
-    ref = np.asarray(haar.haar3d_forward(jnp.asarray(boxes)))
-    px, py, pz = (hp.interleave_perm(v) for v in (x, y, z))
-    for i in (0, 7, 31):
-        phys = c[0, :, :, i * z : (i + 1) * z]
-        np.testing.assert_array_equal(
-            phys[np.ix_(px, py, pz)].view(np.int32), ref[i].view(np.int32))
+    x, y, z = 4, 64, 64
+    box = rng.standard_normal((x, y, z)).astype(np.float32)
+    blocks = [np.asarray(interleave.forward_block(jnp.asarray(box[i:i + 2])))
+              for i in range(0, x, 2)]
+    whole = np.asarray(interleave.forward_block(jnp.asarray(box)))
+    # the X pass pairs rows within each block, so blocking changes only the
+    # Y/Z-independent X pairing, which is block-local for 2-row blocks
+    np.testing.assert_array_equal(np.concatenate(blocks).view(np.int32),
+                                  whole.view(np.int32))
+    px, py, pz = (interleave.interleave_perm(v) for v in (x, y, z))
+    want = oracle.haar_forward_oracle(box).reshape(x, y, z)
+    np.testing.assert_array_equal(
+        whole[np.ix_(px, py, pz)].view(np.int32), want.view(np.int32))
 
 
 def test_device_threshold_integer_boundary_matches_host():

@@ -2,7 +2,7 @@
 
 The reference materializes the entire run (``AllData``) before compressing
 and every regenerated box before writing (modes.cpp:44-112, 151-199); the
-TPU build streams (timestep) windows: read -> compress -> free, and writes
+this build streams (timestep) windows: read -> compress -> free, and writes
 plotfiles per timestep on decompress.  These tests assert (a) the streamed
 archive is byte-identical to the in-memory path and (b) earlier timesteps'
 boxes actually become collectible while later ones process.

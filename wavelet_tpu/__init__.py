@@ -1,26 +1,26 @@
-"""wavelet_tpu — a TPU-native wavelet compression framework for AMReX AMR plotfiles.
+"""wavelet_tpu — wavelet compression for AMReX AMR plotfiles on the GPU.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
-carsonmw3/wavelet-compression C++ tool (reference mounted at /root/reference):
+A JAX/XLA re-design of the capabilities of the carsonmw3/wavelet-compression
+C++ tool:
 
-- ``io``        AMReX plotfile (FAB) reader/writer and the compressed-archive
-                byte formats (sidecars + per-box ``.xz`` payloads), pure host
-                Python/NumPy.  (reference: preprocess.cpp, writeplotfile.cpp,
+- ``io``        AMReX plotfile (FAB) reader/writer, the compressed-archive
+                byte formats (sidecars + per-box ``.xz`` payloads) and the
+                seeded dataset generator, pure host Python/NumPy.
+                (reference: preprocess.cpp, writeplotfile.cpp,
                 readandwrite.cpp)
-- ``core``      The codec math: batched single-scale 3D Haar transform,
-                exact-parity thresholding, RLE, metrics.  Device code is
-                jnp/Pallas over ``[N, X, Y, Z]`` batches.  (reference:
-                compressor.cpp, decompressor.cpp, calc-loss.cpp)
+- ``core``      The codec math: batched 3D Haar transform (and its in-place
+                interleaved form), exact-parity thresholding, RLE, metrics.
+                Device code is plain jnp over ``[N, X, Y, Z]`` batches.
+                (reference: compressor.cpp, decompressor.cpp, calc-loss.cpp)
 - ``runtime``   Device mesh + sharding, shape-bucketed batching of ragged AMR
                 boxes, host-side parallel pack/unpack executor.  (the
                 reference has no runtime layer: iterator.h is a serial loop)
-- ``pipeline``  The three end-to-end modes: compress / decompress / estimate.
-                (reference: modes.cpp)
-- ``kernels``   Fused Pallas TPU kernels for the hot paths.
+- ``pipeline``  The end-to-end modes: compress / decompress / estimate /
+                check / info.  (reference: modes.cpp)
 
 Unlike the reference — a serial, single-process CPU tool — this framework
 batches same-shape boxes into dense ``[N, X, Y, Z]`` arrays, shards the batch
-axis across a ``jax.sharding.Mesh`` of TPU chips, computes thresholds with
+axis across a ``jax.sharding.Mesh`` of devices, computes thresholds with
 XLA collectives, and keeps all transform math on device.
 """
 

@@ -36,7 +36,7 @@ def _kv(args):
     return out
 
 
-_USAGE = """wavelet_tpu — TPU-native wavelet compression for AMReX plotfiles
+_USAGE = """wavelet_tpu — wavelet compression for AMReX plotfiles
 
 Modes (one required):
   -c         compress     datadir= minfile= maxfile= minlevel= maxlevel=
@@ -59,7 +59,7 @@ Extension keys (reference-compatible defaults):
                   coefficients so pass 2 skips the re-read; default 4 GiB,
                   0 = always re-read)
   giantmesh=local|global (global: giant boxes shard over the whole
-                  multi-process mesh — for boxes beyond one host's chips;
+                  multi-process mesh — for boxes beyond one host's devices;
                   -c/-d only)
   devices=N  coordinator=host:port processes=N processid=I  profile=DIR
 
@@ -242,30 +242,33 @@ def main(argv=None):
 
     from wavelet_tpu.runtime import debug
 
-    debug.apply_platform_env()
     debug.enable_compilation_cache()
     debug.apply_env_debug_flags()
 
     mesh = None
     kv = _kv(argv)
     try:
+        import jax
+
+        from wavelet_tpu.runtime import mesh as mesh_lib
+
         if kv.get("coordinator"):
-            # multi-host: coordinator=host:port processid=I processes=N
+            # multi-process: coordinator=host:port processid=I processes=N
             if "processes" not in kv or "processid" not in kv:
                 raise ValueError("coordinator= requires processes=N and "
                                  "processid=I")
-            from wavelet_tpu.runtime import mesh as mesh_lib
             mesh_lib.init_distributed(kv["coordinator"],
                                       int(kv["processes"]),
                                       int(kv["processid"]))
+        dev = jax.devices()[0]
+        log.info("JAX backend: %s, %d device(s), kind %s", dev.platform,
+                 len(jax.devices()), dev.device_kind)
         n_dev = int(kv.get("devices", "1"))
         if n_dev > 1:
-            import jax
-            from wavelet_tpu.runtime import mesh as mesh_lib
             have = len(jax.devices())
             if n_dev > have:
                 # jax.devices()[:n] would silently truncate and run the
-                # "sharded" program on fewer chips than the user asked for
+                # "sharded" program on fewer devices than the user asked for
                 raise ValueError(
                     f"devices={n_dev} but only {have} device(s) available")
             mesh = mesh_lib.data_mesh(jax.devices()[:n_dev])

@@ -2,7 +2,7 @@
 
 This is a deliberately slow, line-by-line-semantics model of the C++
 algorithms (compressor.cpp / decompressor.cpp), used to validate the
-vectorized jnp/Pallas kernels bitwise on small inputs.  Intermediate
+vectorized jnp transforms bitwise on small inputs.  Intermediate
 arithmetic runs in float64 and is rounded to float32 exactly where the C++
 stores into ``float`` — the same rounding points as the reference.
 """

@@ -72,7 +72,7 @@ def mask_coefficients(coeffs: jax.Array, t32: jax.Array) -> jax.Array:
 # mantissa bits, monotone in |c|; quantile resolution ~2^-4 relative.
 # (abs clears the sign bit, so 31 bits >> 20 caps the key at 0x7FF = 2047
 # — the round-4 4096-bin table's top half was provably always zero, and
-# every host accumulation, DCN allgather and two-limb psum moved 2x the
+# every host accumulation, process allgather and two-limb psum moved 2x the
 # needed bytes.)
 EXP_HIST_BINS = 2048
 _EXP_SHIFT = 20
@@ -82,13 +82,13 @@ def abs_exponent_histogram(coeffs: jax.Array) -> jax.Array:
     """uint32[EXP_HIST_BINS] histogram of |coeffs| with float-bit bucketing.
 
     Bin edges are fixed properties of the float32 format, so partial
-    histograms from different batches/shapes/chips merge by plain addition —
-    no prior max pass, deterministic under any sharding.  This is the
+    histograms from different batches/shapes/devices merge by plain
+    addition — no prior max pass, deterministic under any sharding.  This is the
     device-side building block of the *global* threshold mode (the new
     TPU-native capability of BASELINE.json configs 4-5).
 
     uint32 counts are exact for any single call (one call covers at most
-    one device's HBM worth of f32 coefficients, < 2^32); callers that
+    one device's memory worth of f32 coefficients, < 2^32); callers that
     accumulate across batches do so in int64 on host (pipeline/compress.py)
     or with the 16-bit-limb psum of :func:`threshold_from_histogram_device`
     across shards.
@@ -140,9 +140,9 @@ def threshold_from_histogram_device(hist: jax.Array,
 
     ``hist`` is one shard's uint32 fixed-bin histogram
     (:func:`abs_exponent_histogram`); with ``axis_name`` it is all-reduced
-    over the mesh as two 16-bit int32 limbs (exact for any pod size — a
+    over the mesh as two 16-bit int32 limbs (exact for any mesh size — a
     plain int32/uint32 psum would wrap once the per-bin total crosses 2^31,
-    which one fat bin reaches at ~8 GiB of f32 per shard x pod size).
+    which one fat bin reaches at ~8 GiB of f32 per shard x mesh size).
     ``total`` is the *global* number of real coefficients (pass the psum'd
     count, or a static value).
 
@@ -202,10 +202,10 @@ def global_histogram_threshold(coeffs: jax.Array,
                                n_pad_coeffs: int = 0) -> jax.Array:
     """Global coefficient-magnitude quantile via an all-reduced histogram.
 
-    This is the *new* TPU-native thresholding mode mandated by BASELINE.json's
+    This is the *new* thresholding mode mandated by BASELINE.json's
     north star ("on-device global coefficient-magnitude quantile computed via
-    all-reduce histograms across the pod") — the reference has no equivalent
-    (its rule is per-box, see above).  Given sharded ``coeffs`` and a target
+    all-reduce histograms across the devices") — the reference has no
+    equivalent (its rule is per-box, see above).  Given sharded ``coeffs`` and a target
     kept fraction, returns the scalar magnitude threshold such that
     approximately ``keep_fraction`` of all coefficients (across every shard)
     exceed it.
@@ -215,8 +215,8 @@ def global_histogram_threshold(coeffs: jax.Array,
     :func:`threshold_from_histogram`), so a shard_map compress step and the
     CLI pipeline produce the identical threshold for the same data
     (tests/test_global_threshold.py).  Inside ``shard_map``/``pmap`` pass
-    ``axis_name`` to reduce over the mesh with ``lax.psum`` (ICI
-    collectives); outside, the reductions are process-local.
+    ``axis_name`` to reduce over the mesh with ``lax.psum``;
+    outside, the reductions are process-local.
     """
     hist = abs_exponent_histogram(coeffs)
     total = coeffs.size

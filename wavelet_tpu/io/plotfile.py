@@ -413,7 +413,7 @@ def read_level(plotfile_dir: str, level: int, comp_idxs) -> LevelBoxes:
             # select components, narrow to f32, transpose to (C, X, Y, Z);
             # the native cache-blocked transpose fuses the narrowing and
             # the axis reversal (NumPy's strided copy is the plotfile-read
-            # bottleneck otherwise — bench_results/plotfile_io.json)
+            # bottleneck otherwise; scripts/bench_plotfile_io.py)
             sel = (data if comp_idxs == list(range(ncomp))
                    else data[comp_idxs])
             z, y, x = sel.shape[1:]
@@ -448,10 +448,9 @@ def _write_prep_threads() -> int:
     default (hardware_concurrency).  ``WAVELET_TPU_WRITE_THREADS`` pins
     it, which is how bench_plotfile_io measures the scaling curve.
 
-    Measured round 5 (plotfile_io.json): adding OUTER prep workers on top
-    of the threaded transpose was SLOWER on this 4-vCPU rig (128^3: 0.72
-    GB/s 1 outer worker vs 0.33-0.38 at 2-4 — oversubscription + large-
-    allocation churn), so the writer keeps one ordered overlap worker and
+    Measured on a 4-vCPU host: adding OUTER prep workers on top of the
+    threaded transpose was SLOWER (128^3: 0.72 GB/s with 1 outer worker
+    vs 0.33-0.38 at 2-4 — oversubscription + large-allocation churn), so the writer keeps one ordered overlap worker and
     parallelism lives in the native pool."""
     env = os.environ.get("WAVELET_TPU_WRITE_THREADS")
     if env is None or env == "":
@@ -490,7 +489,7 @@ def _write_level_vismf(lvl_dir: str, boxes, locations, dimensions, ncomp,
         # transpose-copy + tobytes chain moved the box three times).  The
         # native cache-blocked transpose does the pass near memory
         # bandwidth — NumPy's strided axis-reversal was the writer
-        # bottleneck (bench_results/plotfile_io.json).  min/max on the
+        # bottleneck (scripts/bench_plotfile_io.py).  min/max on the
         # f32 source: widening to the FAB dtype is exact, so the header
         # tables come out byte-identical.
         if native.available() and arr.flags.c_contiguous \

@@ -5,8 +5,9 @@ missing or older than its source; otherwise :data:`lib` is None and callers
 fall back to the NumPy/``lzma`` path in runtime/engine.py.  Disable with
 ``WAVELET_TPU_NATIVE=0``.
 
-The strided ABI covers both the contiguous ``[N, XYZ]`` coefficient layout
-and the TPU lane-packed ``[M, X, Y, P*Z]`` layout without host repacking.
+The strided ABI walks items as runs of floats at a stride (the engine's
+batches are contiguous ``[N, XYZ]``: one run per item); the indexed and
+mapped ABIs walk the giant-box path's interleaved layout.
 """
 
 from __future__ import annotations
@@ -515,8 +516,8 @@ def unpack_mapped_mem(blobs, dest: np.ndarray, coeff_map: np.ndarray,
 
 def fab_from_boxes(arr: np.ndarray, dtype, n_threads: int = 0) -> np.ndarray:
     """(C, X, Y, Z) f32 box -> on-disk FAB order (C, Z, Y, X) in ``dtype``
-    (f64 or f32), via the cache-blocked native transpose (6-14x NumPy's
-    strided axis-reversal copy — bench_results/plotfile_io.json)."""
+    (f64 or f32), via the cache-blocked native transpose (far faster than
+    NumPy's strided axis-reversal copy; scripts/bench_plotfile_io.py)."""
     assert arr.dtype == np.float32 and arr.flags.c_contiguous
     ncomp, x, y, z = arr.shape
     dtype = np.dtype(dtype)

@@ -5,7 +5,7 @@ WITHOUT decompressing boxes to full data: validates the five sidecars'
 mutual consistency, then every payload's container, header, and RLE
 stream (decodable, shape agrees with ``dimensions.raw``, total count
 matches, runs non-negative and in-bounds).  The operational tool for
-pod-scale archives: a damaged or partially-written archive is diagnosed
+large archives: a damaged or partially-written archive is diagnosed
 file-by-file in one pass instead of failing mid-decompression.
 ``-info`` prints what an archive CONTAINS (timesteps, levels, components,
 flavor, sizes, compression ratio) from sidecar metadata alone — no
@@ -285,7 +285,7 @@ def check_run(cfg: common.Config) -> dict:
             for li in range(len(levels))
             for b in range(counts[t][li])
             for c in info.comp_idxs]
-    # the xz decode releases the GIL, so a thread pool checks a pod-scale
+    # the xz decode releases the GIL, so a thread pool checks a large
     # archive ~cores x faster than the old serial walk; map() preserves
     # walk order, so the errors list stays deterministic
     import concurrent.futures as cf

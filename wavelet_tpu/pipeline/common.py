@@ -48,10 +48,8 @@ class Config:
     archive: str = "files"            # "files" (parity) | "bundle" (one
                                       #   container per timestep+process)
     transfer: str = "dense"           # "dense" | "sparse" (on-device
-                                      #   compaction) | "auto" (sparse iff
-                                      #   the measured d2h link is slower
-                                      #   than the compact stage breakeven,
-                                      #   engine.transfer_mode)
+                                      #   compaction) | "auto" (dense for
+                                      #   now: engine.transfer_mode)
     device_metrics: bool = False      # estimate RMSE on device (f32 fast path)
     fast_estimate: bool = False       # in-memory estimate (no scratch dir)
     keep_sweep: list | None = None    # estimate mode: several keeps in one
@@ -86,7 +84,7 @@ class Config:
                                       #   whole multi-process mesh; giant
                                       #   items become collective across
                                       #   processes — for boxes beyond one
-                                      #   host's chips).  CLI: giantmesh=
+                                      #   host's devices).  CLI: giantmesh=
     global_cache_bytes: int | None = None  # global threshold mode: budget
                                       #   for caching pass-1 coefficients in
                                       #   host RAM so pass 2 skips re-reading

@@ -10,7 +10,7 @@ Stages:
      thresholds, runtime/engine), host RLE + serialize + xz in a thread
      pool, then free — peak RSS is bounded by one timestep, not the run
      (the reference materializes the whole run in ``AllData``; a framework
-     for pod-scale AMR data cannot).
+     for large AMR data cannot).
 
 Multi-host: each process takes its slice of the global work-item sequence
 and writes its own shard of ``.xz`` files (runtime/mesh.process_local_slice).
@@ -165,10 +165,10 @@ def _pack_dense_or_sparse(batches, eng, packer, out_dir: str, keep: float,
 
 
 def _allreduce_histogram(hist: np.ndarray) -> np.ndarray:
-    """Sum int64 histograms across processes over DCN.
+    """Sum int64 histograms across processes.
 
     jax demotes int64 arrays to int32 when x64 is off, which would silently
-    truncate counts past 2^31 (realistic at pod scale); the gather therefore
+    truncate counts past 2^31 (realistic across many processes); the gather therefore
     ships two int32 halves and recombines in int64 on host.
     """
     import jax
@@ -235,7 +235,6 @@ def compress_collected(run: common.RunData, keep: float, out_dir: str,
             log.info("Resume: skipping %d already-compressed items", skipped)
         items = kept_items
     batches = batching.plan_batches(items, pad_multiple=pad,
-                                    pack_fn=eng.pack_factor,
                                     pad_fn=eng.pad_multiple_for)
     if threshold_mode == "global":
         if keep_fraction is None:
@@ -249,7 +248,7 @@ def compress_collected(run: common.RunData, keep: float, out_dir: str,
             coeff_batches.append(cb)
             hist += h
         if jax.process_count() > 1:
-            # all-reduce the histogram over DCN so every host derives the
+            # all-reduce the histogram so every host derives the
             # same global threshold
             hist = _allreduce_histogram(hist)
         t = thr.threshold_from_histogram(hist, keep_fraction)
@@ -398,7 +397,6 @@ def _compress_streaming(cfg: common.Config, meta: common.RunMeta,
             n_skip = len(items) - len(kept)
             items = kept
         return batching.plan_batches(items, pad_multiple=pad,
-                                     pack_fn=eng.pack_factor,
                                      pad_fn=eng.pad_multiple_for), \
             n_skip, owned
 
@@ -435,12 +433,11 @@ def _compress_streaming(cfg: common.Config, meta: common.RunMeta,
             must not depend on per-process batch bytes — each process
             plans only its own item slice, and a divergent keep_t would
             have one process launch a collective its peer skips
-            (deadlock).  Applies the same pack/pad/quantum math
+            (deadlock).  Applies the same pad/quantum math
             plan_batches uses to the GLOBAL item multiset; any single
             process's padded allocation is <= this (its bucket counts
-            are <= the global counts, and cap_pack only halves further
-            for smaller buckets, so its quanta divide these), so the
-            budget still bounds per-process RAM — padding included."""
+            are <= the global counts), so the budget still bounds
+            per-process RAM — padding included."""
             from collections import Counter
 
             shape_counts: Counter = Counter()
@@ -449,8 +446,7 @@ def _compress_streaming(cfg: common.Config, meta: common.RunMeta,
                     shape_counts[tuple(d)] += len(meta.comp_idxs)
             return sum(
                 batching.dense_batch_nbytes(
-                    n, shape, eng.pack_factor(shape),
-                    eng.pad_multiple_for(shape))
+                    n, shape, eng.pad_multiple_for(shape))
                 for shape, n in shape_counts.items())
 
         for t, (batches, _, owned) in _iter_prefetched(
@@ -570,11 +566,6 @@ def _compress_streaming(cfg: common.Config, meta: common.RunMeta,
                 len(meta.files),
                 lambda t: timestep_batches(t, resume_filter=cfg.resume),
                 cfg.prefetch):
-            # timestep boundary: previous step's device work has drained
-            # and the prefetch worker only reads the disk, so the link is
-            # quiescent — the one safe moment for a stale-probe refresh
-            if cfg.transfer == "auto":
-                engine.CodecEngine.reprobe_link_if_stale()
             skipped += n_skip
             nf, ib, ob, d2h = _pack_dense_or_sparse(
                 batches, eng, packer, cfg.compressed_dir, cfg.keep,

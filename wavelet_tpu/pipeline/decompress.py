@@ -39,21 +39,20 @@ def _unpack_bucket(cfg, eng, packer, pad, dims, bucket_items, transfer,
     previous bucket's inverse."""
     pad = eng.pad_multiple_for(dims) if pad > 1 else pad
     if preview:
-        batch = batching.empty_batch(bucket_items, dims, pack=1,
+        batch = batching.empty_batch(bucket_items, dims,
                                      pad_multiple=pad, layout="halves",
                                      scales=eng.eff_scales(dims),
                                      arena=arena)
         packer.unpack_into(cfg.compressed_dir, batch)
         return "preview", batch, 0
-    transfer = eng.transfer_mode(dims, transfer, direction="h2d")
+    transfer = eng.transfer_mode(dims, transfer)
     if transfer == "sparse":
         batch = batching.ShapeBatch(shape=dims, data=None,
                                     items=bucket_items,
                                     n_valid=len(bucket_items))
         idx, vals = packer.unpack_sparse(cfg.compressed_dir, batch)
         dense_nbytes = batching.dense_batch_nbytes(
-            len(bucket_items), dims, pack=eng.pack_factor(dims),
-            pad_multiple=pad)
+            len(bucket_items), dims, pad_multiple=pad)
         if idx.nbytes + vals.nbytes < dense_nbytes:
             return "sparse", (batch, idx, vals), idx.nbytes + vals.nbytes
         # sparse transport must never ship MORE than dense: at high kept
@@ -66,7 +65,6 @@ def _unpack_bucket(cfg, eng, packer, pad, dims, bucket_items, transfer,
                  "(%d pair bytes >= %d dense) — falling back to dense "
                  "transport", dims, idx.nbytes + vals.nbytes, dense_nbytes)
         dense = batching.empty_batch(bucket_items, dims,
-                                     pack=eng.pack_factor(dims),
                                      pad_multiple=pad,
                                      layout=eng.coeff_layout(dims),
                                      scales=eng.eff_scales(dims),
@@ -80,7 +78,6 @@ def _unpack_bucket(cfg, eng, packer, pad, dims, bucket_items, transfer,
             dense.item_write(i, row.reshape(dims))
         return "dense", dense, dense.data.nbytes
     batch = batching.empty_batch(bucket_items, dims,
-                                 pack=eng.pack_factor(dims),
                                  pad_multiple=pad,
                                  layout=eng.coeff_layout(dims),
                                  scales=eng.eff_scales(dims),
@@ -322,13 +319,8 @@ def iter_decompressed_timesteps(cfg: common.Config, mesh=None, stats=None):
             sel_times = sel_times[sl]
     arena = batching.BufferArena()   # same shape buckets recur every step
     for t in sel_times:
-        # timestep boundary: the link is quiescent here (the prefetch
-        # worker only writes plotfiles), so a stale transfer=auto probe
-        # can re-run without measuring the pipeline's own transfers; the
-        # arena drops buffers a regrid left behind
+        # timestep boundary: the arena drops buffers a regrid left behind
         arena.new_generation()
-        if cfg.transfer == "auto":
-            engine.CodecEngine.reprobe_link_if_stale()
         regen, h2d = _decompress_timestep(cfg, eng, packer, pad, comp_idxs,
                                           t, num_levels, counts, dimensions,
                                           transfer=cfg.transfer,

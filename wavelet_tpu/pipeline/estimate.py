@@ -228,7 +228,6 @@ def _estimate_scratch(run, cfg, mesh, files, levels) -> dict:
             # giant shapes must not pad phantom giant boxes onto the
             # leading axis (they shard WITHIN the box)
             batch = batching.empty_batch(items, dims,
-                                         pack=eng.pack_factor(dims),
                                          pad_multiple=eng.pad_multiple_for(
                                              dims),
                                          layout=eng.coeff_layout(dims),
@@ -289,7 +288,7 @@ def estimate_run(cfg: common.Config, mesh=None) -> dict:
     if cfg.fast_estimate:
         # the fast path stacks plain arrays (no ShapeBatch routing), so it
         # cannot take the giant-box sharded transform — a box that NEEDS
-        # sharding (too large for one chip) must use the scratch path,
+        # sharding (too large for one device) must use the scratch path,
         # whose compress_collected/decompress_shapebatch machinery does
         eng_gate = engine.CodecEngine(mesh=mesh, scales=cfg.scales,
                                       giant_box_bytes=cfg.giant_box_bytes)

@@ -17,8 +17,7 @@ import threading
 
 import numpy as np
 
-__all__ = ["WorkItem", "ShapeBatch", "plan_batches", "pad_to_multiple",
-           "cap_pack"]
+__all__ = ["WorkItem", "ShapeBatch", "plan_batches", "pad_to_multiple"]
 
 
 @dataclass(frozen=True)
@@ -33,14 +32,8 @@ class WorkItem:
 
 @dataclass
 class ShapeBatch:
-    """A dense batch of same-shape items.
-
-    ``pack == 1``: ``data`` is ``[N, X, Y, Z]`` and ``data[i]`` belongs to
-    ``items[i]``.  ``pack == P > 1`` (TPU lane-packed layout): ``data`` is
-    ``[N//P, X, Y, P*Z]`` and item i lives at
-    ``data[i // P, :, :, (i % P)*Z : (i % P + 1)*Z]`` — P boxes' Z-axes
-    fill the 128-lane dimension, which is what makes the fused Pallas
-    kernels DMA-efficient (kernels/haar_pallas.py).
+    """A dense batch of same-shape items: ``data`` is ``[N, X, Y, Z]`` and
+    ``data[i]`` belongs to ``items[i]``.
 
     ``n_valid`` <= N marks the unpadded prefix; padded slots are zeros and
     are ignored when unpacking results.
@@ -50,19 +43,18 @@ class ShapeBatch:
     data: np.ndarray
     items: list               # length n_valid
     n_valid: int
-    pack: int = 1
     # coefficient layout: "halves" = each axis deinterleaved into
     # (low half, high half) — the reference's order; "interleaved" = lows
-    # at even, highs at odd indices (the in-place kernel layout; the host
-    # packer walks kernels/haar_pallas.interleave_perm to recover the
+    # at even, highs at odd indices (the giant-box path's in-place layout;
+    # the host packer walks core/interleave.interleave_perm to recover the
     # reference byte order).  ``scales`` is the pyramid depth the layout
     # encodes (the multi-scale interleaved map is non-separable; see
-    # haar_pallas.interleave_coords_multi).  Spatial (non-coefficient)
+    # interleave.interleave_coords_multi).  Spatial (non-coefficient)
     # batches are always natural order and keep the defaults.
     layout: str = "halves"
     scales: int = 1
     # lazily built caches, EXCLUDED from dataclasses.replace (init=False):
-    # both depend on (pack, scales, layout), which the engine routinely
+    # the map depends on (scales, layout), which the engine routinely
     # rewrites via replace() — carrying a stale cache across a geometry
     # change would read coefficients at wrong offsets with no error
     _map_cache: object = field(default=None, init=False, repr=False,
@@ -74,12 +66,11 @@ class ShapeBatch:
         """Flat logical->physical element offsets within an item region
         (cached: it is O(X*Y*Z) to build and shared by every item)."""
         if self._map_cache is None:
-            from wavelet_tpu.kernels.haar_pallas import interleave_map_multi
+            from wavelet_tpu.core.interleave import interleave_map_multi
 
             x, y, z = self.shape
-            L = self.pack * z
             self._map_cache = interleave_map_multi(
-                self.shape, self.scales, y * L, L, 1)
+                self.shape, self.scales, y * z, z, 1)
         return self._map_cache
 
     def item_view(self, i: int) -> np.ndarray:
@@ -87,27 +78,18 @@ class ShapeBatch:
 
         A view into ``data`` for natural layouts; a gathered copy for
         ``layout == "interleaved"`` coefficient batches."""
-        phys = self._item_phys(i)
         if self.layout != "interleaved":
-            return phys
+            return self.data[i]
         x, y, z = self.shape
         off = int(self.item_offsets()[i])
         flat = self.data.reshape(-1)
         return flat[off + self._logical_map()].reshape(x, y, z)
 
-    def _item_phys(self, i: int) -> np.ndarray:
-        """Item i's physical (X, Y, Z) region (always a view)."""
-        if self.pack == 1:
-            return self.data[i]
-        z = self.shape[-1]
-        m, p = divmod(i, self.pack)
-        return self.data[m, :, :, p * z : (p + 1) * z]
-
     def item_write(self, i: int, logical: np.ndarray) -> None:
         """Store item i from a LOGICAL-order (X, Y, Z) array (scatters
         through the interleave map when needed)."""
         if self.layout != "interleaved":
-            self._item_phys(i)[:] = logical
+            self.data[i] = logical
             return
         off = int(self.item_offsets()[i])
         flat = self.data.reshape(-1)
@@ -115,17 +97,12 @@ class ShapeBatch:
 
     def item_offsets(self) -> np.ndarray:
         """Flat-element offset of each item's first coefficient (for the
-        strided native codec); row geometry = (X*Y rows of Z, stride P*Z).
-        Cached — per-item accessors call this once per item."""
+        native codec).  Cached — per-item accessors call this once per
+        item."""
         if self._offsets_cache is None:
-            x, y, z = self.shape
             n = len(self.items)
-            idx = np.arange(n, dtype=np.int64)
-            if self.pack == 1:
-                self._offsets_cache = idx * (x * y * z)
-            else:
-                m, p = np.divmod(idx, self.pack)
-                self._offsets_cache = m * (x * y * self.pack * z) + p * z
+            self._offsets_cache = (np.arange(n, dtype=np.int64)
+                                   * int(np.prod(self.shape)))
         return self._offsets_cache
 
 
@@ -133,35 +110,10 @@ def pad_to_multiple(n: int, m: int) -> int:
     return -(-n // m) * m if m > 1 else n
 
 
-def cap_pack(pack: int, n_items: int, z: int | None = None) -> int:
-    """Halve an over-wide lane-pack factor until it stops forcing more
-    than ~2x padding slots for a small bucket (tiny boxes can request
-    P=512 lanes' worth of packing; 2 real items would pad to 512).
-    Archive bytes are layout-independent, so the cap is purely a
-    compute/VMEM economy.
-
-    With ``z`` given, never cap below a full 128-lane row (P*z >= 128):
-    narrower lane shapes are kernel classes no hardware run has
-    validated (Mosaic enforces tiling rules interpret mode does not),
-    so the floor keeps production on proven shapes at the cost of a
-    little extra padding for very small buckets."""
-    floor = 1
-    if z and z > 0:
-        floor = max(1, -(-128 // z))
-    while pack > floor and pack // 2 >= floor and pack >= 2 * max(1, n_items):
-        pack //= 2
-    return max(1, pack)
-
-
-def dense_batch_nbytes(n_items: int, dims, pack: int = 1,
-                       pad_multiple: int = 1) -> int:
+def dense_batch_nbytes(n_items: int, dims, pad_multiple: int = 1) -> int:
     """Bytes of the padded dense array :func:`empty_batch` would allocate
     — for transport-cost decisions without allocating it."""
-    x, y, z = dims
-    pack = cap_pack(pack, n_items, z)
-    quantum = pack * pad_multiple
-    n_pad = pad_to_multiple(n_items, quantum) if quantum > 1 else n_items
-    return n_pad * x * y * z * 4
+    return pad_to_multiple(n_items, pad_multiple) * int(np.prod(dims)) * 4
 
 
 class BufferArena:
@@ -230,7 +182,7 @@ class BufferArena:
                     del self._free[shape]
 
 
-def empty_batch(items, dims, pack: int = 1, pad_multiple: int = 1,
+def empty_batch(items, dims, pad_multiple: int = 1,
                 layout: str = "halves", scales: int = 1,
                 arena: "BufferArena | None" = None) -> ShapeBatch:
     """Zero-filled ShapeBatch for ``items`` of one shape (decompress side).
@@ -238,39 +190,28 @@ def empty_batch(items, dims, pack: int = 1, pad_multiple: int = 1,
     With ``arena``, a recycled buffer may be returned instead: only the
     padding slots (which ``unpack_into`` never rewrites — every real item's
     full footprint is) are re-zeroed."""
-    x, y, z = dims
     n = len(items)
-    pack = cap_pack(pack, n, z)
-    quantum = pack * pad_multiple
-    n_pad = pad_to_multiple(n, quantum) if quantum > 1 else n
-    arr_shape = ((n_pad, x, y, z) if pack == 1
-                 else (n_pad // pack, x, y, pack * z))
+    arr_shape = (pad_to_multiple(n, pad_multiple),) + tuple(dims)
     data = arena.acquire(arr_shape) if arena is not None else None
     if data is None:
         data = np.zeros(arr_shape, dtype=np.float32)
-    elif pack == 1:
-        data[n:] = 0.0
     else:
-        for i in range(n, n_pad):
-            mrow, p = divmod(i, pack)
-            data[mrow, :, :, p * z:(p + 1) * z] = 0.0
+        data[n:] = 0.0
     return ShapeBatch(shape=tuple(dims), data=data, items=list(items),
-                      n_valid=n, pack=pack, layout=layout, scales=scales)
+                      n_valid=n, layout=layout, scales=scales)
 
 
 def plan_batches(entries, pad_multiple: int = 1, max_batch_bytes: int = 1 << 30,
-                 pack_fn=None, pad_fn=None):
+                 pad_fn=None):
     """Group ``entries`` = iterable of (WorkItem, array[X,Y,Z] f32) into
     :class:`ShapeBatch` es.
 
-    ``pack_fn(shape) -> P`` selects the lane-pack factor per shape (e.g.
-    ``kernels.haar_pallas.lane_pack_factor`` when the engine runs the fused
-    TPU kernels); omitted/1 keeps the plain layout.  Batches are split so
-    none exceeds ``max_batch_bytes``; N pads to a multiple of
-    ``P * pad_multiple`` so the packed leading axis shards evenly over the
-    mesh.  ``pad_fn(shape) -> int`` overrides ``pad_multiple`` per shape
-    (``engine.pad_multiple_for``: giant shapes shard within the box, so
-    their batches must not pad phantom giant boxes onto the leading axis).
+    Batches are split so none exceeds ``max_batch_bytes``; N pads to a
+    multiple of ``pad_multiple`` so the leading axis shards evenly over
+    the mesh.  ``pad_fn(shape) -> int`` overrides ``pad_multiple`` per
+    shape (``engine.pad_multiple_for``: giant shapes shard within the box,
+    so their batches must not pad phantom giant boxes onto the leading
+    axis).
     """
     buckets = {}
     for item, arr in entries:
@@ -280,32 +221,21 @@ def plan_batches(entries, pad_multiple: int = 1, max_batch_bytes: int = 1 << 30,
     batches = []
     for shape in sorted(buckets, key=lambda s: (-int(np.prod(s)), s)):
         pairs = buckets[shape]
-        pad_m = int(pad_fn(shape)) if pad_fn is not None else pad_multiple
-        pack = int(pack_fn(shape)) if pack_fn is not None else 1
-        pack = cap_pack(pack, len(pairs), shape[-1])
-        quantum = pack * pad_m
+        quantum = int(pad_fn(shape)) if pad_fn is not None else pad_multiple
         per_item = int(np.prod(shape)) * 4
         chunk = max(quantum, (max_batch_bytes // max(per_item, 1)) or 1)
         # round DOWN to the quantum so a chunk never exceeds
         # max_batch_bytes by up to quantum-1 items (the unavoidable
         # single-quantum minimum is the only sanctioned overshoot)
         chunk = max(quantum, chunk - chunk % quantum)
-        x, y, z = shape
         for start in range(0, len(pairs), chunk):
             part = pairs[start : start + chunk]
             n = len(part)
-            n_pad = pad_to_multiple(n, quantum) if quantum > 1 else n
-            if pack == 1:
-                data = np.zeros((n_pad,) + shape, dtype=np.float32)
-                for i, (_item, arr) in enumerate(part):
-                    data[i] = arr
-            else:
-                data = np.zeros((n_pad // pack, x, y, pack * z),
-                                dtype=np.float32)
-                for i, (_item, arr) in enumerate(part):
-                    m, p = divmod(i, pack)
-                    data[m, :, :, p * z : (p + 1) * z] = arr
+            data = np.zeros((pad_to_multiple(n, quantum),) + shape,
+                            dtype=np.float32)
+            for i, (_item, arr) in enumerate(part):
+                data[i] = arr
             batches.append(ShapeBatch(shape=shape, data=data,
                                       items=[it for it, _ in part],
-                                      n_valid=n, pack=pack))
+                                      n_valid=n))
     return batches

@@ -1,9 +1,9 @@
-"""Multi-chip compress step with explicit collectives (shard_map).
+"""Multi-device compress step with explicit collectives (shard_map).
 
-The reference is strictly serial; this module is the pod-scale execution
-path mandated by BASELINE.json's north star: boxes/timesteps shard over the
-``data`` mesh axis, and the *global* coefficient threshold is computed with
-an all-reduced magnitude histogram (``lax.psum``/``lax.pmax`` over ICI)
+The reference is strictly serial; this module is the multi-device
+execution path: boxes/timesteps shard over the ``data`` mesh axis, and the
+*global* coefficient threshold is computed with an all-reduced magnitude
+histogram (``lax.psum``/``lax.pmax``, which XLA hands to NCCL on GPUs)
 instead of the per-box rule.
 
 Two modes:
@@ -12,7 +12,7 @@ Two modes:
   reference rule), fully data-parallel; maxima come back per item, no
   cross-shard communication.
 - :func:`make_global_compress_step` — one histogram-quantile threshold
-  across every coefficient on every chip; the all-reduce rides ICI.
+  across every coefficient on every device.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 from jax.sharding import NamedSharding
 
-from wavelet_tpu.core import haar, threshold
+from wavelet_tpu.core import haar, interleave, threshold
 from wavelet_tpu.runtime.mesh import DATA_AXIS
 
 try:  # jax>=0.4.35 moved shard_map out of experimental
@@ -88,9 +88,9 @@ def make_global_compress_step(mesh, keep_fraction: float,
             n_pad_coeffs=n_pad_rows * flat.shape[1])
         mask = jnp.abs(flat) > thr
         # two 16-bit limbs: a plain int32 psum of per-shard counts wraps
-        # once the GLOBAL kept crosses 2^31 (realistic at pod scale —
+        # once the GLOBAL kept crosses 2^31 (realistic across many devices —
         # the same overflow threshold_from_histogram_device's limb psum
-        # avoids); limb sums stay exact for any pod size <= 32k shards
+        # avoids); limb sums stay exact for up to 32k shards
         local = jnp.sum(mask, dtype=jnp.int32)
         kept = jax.lax.psum(
             jnp.stack([local & 0xFFFF, local >> 16]), DATA_AXIS)
@@ -106,7 +106,7 @@ def _exchange_perms(D: int):
     pieces; globally all lows must precede all highs, so shard s's low piece
     belongs on shard s//2 (slot s%2) and its high piece on D//2 + s//2.
     Sources of equal parity form disjoint permutations, so the full
-    exchange is four ppermutes over ICI.
+    exchange is four ppermutes.
     """
     lo_even = [(s, s // 2) for s in range(0, D, 2)]
     lo_odd = [(s, s // 2) for s in range(1, D, 2)]
@@ -119,11 +119,11 @@ def make_sharded_box_forward(mesh):
     """Forward Haar for ONE giant box sharded over the mesh's X axis.
 
     Capability with no reference analogue: boxes too large for a single
-    chip's memory are laid out ``[X, Y, Z]`` with X sharded across devices.
+    device's memory are laid out ``[X, Y, Z]`` with X sharded across devices.
     The Z and Y passes are shard-local (whole-box single-scale Haar needs no
     spatial halos; pairs never straddle an even shard boundary).  The X
     pass pairs locally, then the low/high pieces regroup across shards with
-    four ``lax.ppermute`` boundary exchanges over ICI — this is the
+    four ``lax.ppermute`` boundary exchanges — this is the
     block-boundary exchange machinery of BASELINE.json config 5.
 
     Requires: even shard extent and an even number of devices.
@@ -204,13 +204,10 @@ def make_sharded_box_forward_interleaved(mesh, scales: int = 1):
     ``st`` divides the shard extent.
 
     Output: interleaved-layout coefficients, sharded over X.  The host
-    recovers the reference order with the same
-    ``haar_pallas.interleave_map_multi`` walk tables the single-chip
-    interleaved path uses (bitwise-identical archives; see
-    tests/test_multichip.py).
+    recovers the reference order with the
+    ``interleave.interleave_map_multi`` walk tables (bitwise-identical
+    archives; see tests/test_multichip.py).
     """
-    from wavelet_tpu.kernels import haar_pallas
-
     q = 1 << max(1, int(scales))
 
     @partial(shard_map, mesh=mesh, in_specs=P(DATA_AXIS),
@@ -218,7 +215,7 @@ def make_sharded_box_forward_interleaved(mesh, scales: int = 1):
     def fwd(xl):
         assert xl.shape[0] % q == 0, (
             f"shard X extent {xl.shape[0]} must divide by 2**scales={q}")
-        return haar_pallas._fwd_interleaved_block(xl, scales)
+        return interleave.forward_block(xl, scales)
 
     return jax.jit(fwd)
 
@@ -227,8 +224,6 @@ def make_sharded_box_inverse_interleaved(mesh, scales: int = 1):
     """Inverse of :func:`make_sharded_box_forward_interleaved`: consumes
     interleaved coefficients sharded over X, emits the natural spatial
     box — again with zero collectives."""
-    from wavelet_tpu.kernels import haar_pallas
-
     q = 1 << max(1, int(scales))
 
     @partial(shard_map, mesh=mesh, in_specs=P(DATA_AXIS),
@@ -236,13 +231,13 @@ def make_sharded_box_inverse_interleaved(mesh, scales: int = 1):
     def bwd(cl):
         assert cl.shape[0] % q == 0, (
             f"shard X extent {cl.shape[0]} must divide by 2**scales={q}")
-        return haar_pallas._inv_interleaved_block(cl, scales)
+        return interleave.inverse_block(cl, scales)
 
     return jax.jit(bwd)
 
 
 def make_train_step(mesh, keep_fraction: float = 0.05):
-    """The full multi-chip 'step' for one batch: forward transform, global
+    """The full multi-device 'step' for one batch: forward transform, global
     all-reduce threshold, masking, inverse transform, and the all-reduced
     RMSE of the lossy round trip — every collective the framework uses, in
     one compiled program.  (This is what ``__graft_entry__.dryrun_multichip``
@@ -266,14 +261,14 @@ def make_train_step(mesh, keep_fraction: float = 0.05):
 
 # --- cross-host giant boxes (VERDICT r3 stretch item 7) --------------------
 #
-# A box larger than one HOST's chips shards over the GLOBAL multi-process
+# A box larger than one HOST's devices shards over the GLOBAL multi-process
 # mesh.  The interleaved transform needs no collectives (every Haar pair at
 # every scale is shard-local — see make_sharded_box_forward_interleaved),
 # so the cross-host case adds only data plumbing: each process contributes
 # its X-slab via jax.make_array_from_process_local_data, the same
 # shard-mapped kernels run SPMD across processes, and the packing host
-# gathers the coefficient slabs over DCN (host RAM >> HBM, so the gather
-# target fits where the box itself could not).
+# gathers the coefficient slabs back (host RAM is far larger than device
+# memory, so the gather target fits where the box itself could not).
 
 def giant_from_process_slabs(mesh, local_slab, global_shape):
     """Assemble a globally-X-sharded giant box from per-process slabs.
@@ -289,7 +284,7 @@ def giant_from_process_slabs(mesh, local_slab, global_shape):
 
 def gather_giant(arr):
     """Fetch a globally-sharded giant array to EVERY process's host memory
-    (jax.experimental.multihost_utils allgather over DCN); the work-item
+    (jax.experimental.multihost_utils allgather); the work-item
     owner packs from its copy.  A fully-addressable array — single
     process, OR a process-LOCAL giant mesh in a multi-process run — is a
     plain fetch: routing it through ``process_allgather(tiled=True)``
